@@ -1,15 +1,15 @@
-"""TPU-native framework for efficient video classification on YouTube-8M.
+"""JAX framework for efficient video classification on YouTube-8M.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 shwetabhardwaj44/EfficientVideoClassification_Youtube8M (CVPR'19
 "Efficient Video Classification Using Fewer Frames"): teacher-student
 distillation of hierarchical LSTM video classifiers, trained and served
-on TPU via `jit`/`pjit` over `jax.sharding.Mesh`.
+on NVIDIA GPUs via `jit` over `jax.sharding.Mesh`.
 
 Layering (bottom-up):
   data/     TFRecord + SequenceExample IO without TensorFlow (C++ hot path)
-  ops/      TPU compute primitives: TF1-semantics LSTM scan, preprocessing,
-            Pallas kernels
+  ops/      compute primitives: TF1-semantics LSTM scan, preprocessing,
+            int8 quantized inference
   models/   frame-level + video-level model zoo and registry
   losses    pure-function loss registry (9 losses)
   metrics/  Hit@1 / PERR / GAP / mAP machinery

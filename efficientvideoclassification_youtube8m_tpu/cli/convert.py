@@ -24,6 +24,9 @@ from efficientvideoclassification_youtube8m_tpu.train import (
     save_checkpoint,
     student_state_from_distill,
 )
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 logger = logging.getLogger("convert")
 
@@ -64,6 +67,7 @@ def convert(args) -> str:
 
 def main(argv=None):
     flags_lib.setup_logging()
+    enable_compilation_cache()
     parser = flags_lib.base_parser(
         "Convert a teacher-student checkpoint to student-only"
     )

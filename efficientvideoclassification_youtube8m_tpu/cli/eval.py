@@ -29,6 +29,9 @@ from efficientvideoclassification_youtube8m_tpu.train import (
     student_state_from_distill,
 )
 from efficientvideoclassification_youtube8m_tpu.utils import summary as summary_lib
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 logger = logging.getLogger("eval")
 
@@ -153,9 +156,7 @@ def evaluate(args):
     )
     aggregated = not args.frame_features
     quantize = getattr(args, "quantize", "none")
-    stacked_steps = flags_lib.resolve_steps_per_dispatch(
-        args, aggregated=aggregated, process_count=host.process_count,
-        logger=logger)
+    stacked_steps = flags_lib.resolve_steps_per_dispatch(args, logger=logger)
     if quantize == "int8":
         # evaluate the int8 SERVING numerics at scale (the deploy-gate
         # workflow): quantize each restored checkpoint's student params
@@ -242,7 +243,8 @@ def evaluate(args):
 
 def main(argv=None):
     flags_lib.setup_logging()
-    parser = flags_lib.base_parser("Evaluate the finetuned student (TPU)")
+    enable_compilation_cache()
+    parser = flags_lib.base_parser("Evaluate the finetuned student")
     parser.add_argument("--quantize", default="none",
                         choices=["none", "int8"],
                         help="int8: evaluate the quantized serving path "
@@ -251,10 +253,7 @@ def main(argv=None):
                         help="K>1: scan K batches per device launch (one "
                         "packed fetch) — amortizes per-launch dispatch "
                         "latency; epoch metrics are bit-identical. "
-                        "Default 0 = auto: 24 on TPU for single-process "
-                        "frame-level eval (the measured-fastest K), 1 for "
-                        "aggregated readers, multi-host, or non-TPU "
-                        "backends. Pass 1 to force per-batch dispatch")
+                        "Default 0 = auto: 1 (per-batch dispatch)")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     evaluate(args)

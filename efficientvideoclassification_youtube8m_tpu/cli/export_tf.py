@@ -27,6 +27,9 @@ from efficientvideoclassification_youtube8m_tpu.train import (
     restore_checkpoint,
     student_state_from_distill,
 )
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 logger = logging.getLogger("export_tf")
 
@@ -80,6 +83,7 @@ def export(args) -> str:
 
 def main(argv=None):
     flags_lib.setup_logging()
+    enable_compilation_cache()
     parser = flags_lib.base_parser(
         "Export a checkpoint as a reference TF-V2 Saver bundle")
     parser.add_argument("--checkpoint", default="",

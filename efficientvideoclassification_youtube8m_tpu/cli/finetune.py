@@ -27,6 +27,9 @@ from efficientvideoclassification_youtube8m_tpu.train import (
     student_state_from_distill,
 )
 from efficientvideoclassification_youtube8m_tpu.utils import summary as summary_lib
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 logger = logging.getLogger("finetune")
 
@@ -175,7 +178,8 @@ def finetune(args):
 
 def main(argv=None):
     flags_lib.setup_logging()
-    parser = flags_lib.base_parser("Finetune the student alone (TPU)")
+    enable_compilation_cache()
+    parser = flags_lib.base_parser("Finetune the student alone")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     finetune(args)

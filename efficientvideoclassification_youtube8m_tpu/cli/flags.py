@@ -90,15 +90,6 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--scan_unroll", type=int, default=15)
-    p.add_argument("--use_pallas_inference", type=_bool, default=True)
-    p.add_argument("--lstm_pallas_train", type=_bool, default=True,
-                   help="fused Pallas train kernels (custom-VJP fwd/bwd "
-                   "scans): +31% train throughput at flagship dims. "
-                   "Active on TPU bf16 when the per-device program is "
-                   "explicit (single chip, or the shard_map train path); "
-                   "falls back to the XLA scan elsewhere. Default-on "
-                   "after passing the acceptance convergence bands "
-                   "(scripts/acceptance_run.py) on the real chip.")
     p.add_argument("--faithful_quirks", type=_bool, default=True)
     p.add_argument("--model_parallelism", type=int, default=1,
                    help="size of the 'model' mesh axis (tensor parallelism)")
@@ -148,40 +139,22 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 
 
 def resolve_steps_per_dispatch(args: argparse.Namespace,
-                               aggregated: bool = False,
-                               process_count: int = 1,
                                logger: Optional[logging.Logger] = None) -> int:
     """Resolve --steps_per_dispatch 0 ("auto") and write the result back
     onto args.
 
-    Auto rule (VERDICT r4 #3 — the fast path must be the default): K=24
-    on a TPU backend for the single-process frame-level paths — the
-    hardware K sweep measured 16→32.7k, 24→48.2k, 32→47.9k videos/s e2e
-    (scripts/probe_stacked_eval_k.py), and the stacked program's epoch
-    metrics are bit-identical to K=1 (tests/test_stacked_eval.py). K=1
-    everywhere stacking is an edge case: aggregated readers (video-level
-    batches are cheap; dispatch isn't the bottleneck), multi-host runs
-    (per-process partial stacks interact with cross-host batch padding),
-    and non-TPU backends (compile time of the K-scan dominates on CPU).
-    An explicit --steps_per_dispatch >= 1 always wins. Negative values
-    clamp to 1 (per-batch dispatch — the pre-auto behavior, and what
-    cli.infer's max(1, ...) clamp still does); exactly 0 means auto."""
+    Auto resolves to K=1 (one batch per launch) on every backend: the
+    stacked K-batch program (bit-identical epoch metrics,
+    tests/test_stacked_eval.py) stays available through an explicit
+    --steps_per_dispatch K, but no measurement on the GPU favours it
+    yet. An explicit --steps_per_dispatch >= 1 always wins. Negative
+    values clamp to 1 (what cli.infer's max(1, ...) clamp also does);
+    exactly 0 means auto."""
     k = getattr(args, "steps_per_dispatch", 1)
-    if k < 0:
-        k = 1
-    if k == 0:
-        import jax
-
-        k = (
-            24
-            if (jax.default_backend() == "tpu" and not aggregated
-                and process_count == 1)
-            else 1
-        )
-        if logger is not None:
-            logger.info("steps_per_dispatch auto-resolved to %d", k)
-    args.steps_per_dispatch = k
-    return k
+    if k == 0 and logger is not None:
+        logger.info("steps_per_dispatch auto-resolved to 1")
+    args.steps_per_dispatch = max(1, k)
+    return args.steps_per_dispatch
 
 
 def dump_flags(args: argparse.Namespace, logger: Optional[logging.Logger] = None):

@@ -34,6 +34,9 @@ from efficientvideoclassification_youtube8m_tpu.train import (
     restore_checkpoint,
     student_state_from_distill,
 )
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 logger = logging.getLogger("infer")
 
@@ -237,6 +240,7 @@ def inference(args):
 
 def main(argv=None):
     flags_lib.setup_logging()
+    enable_compilation_cache()
     parser = flags_lib.base_parser("Inference: checkpoint -> Kaggle CSV")
     parser.add_argument("--output_file", required=True)
     parser.add_argument("--tensor_name", default="",

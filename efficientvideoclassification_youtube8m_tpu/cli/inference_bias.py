@@ -14,10 +14,14 @@ import sys
 
 from efficientvideoclassification_youtube8m_tpu.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_tpu.cli.infer import inference
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 
 def main(argv=None):
     flags_lib.setup_logging()
+    enable_compilation_cache()
     parser = flags_lib.base_parser("Inference with a rescaled bias tensor")
     parser.add_argument("--output_file", required=True)
     parser.add_argument("--tensor_name", required=True,

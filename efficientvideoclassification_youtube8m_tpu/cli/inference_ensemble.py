@@ -18,8 +18,6 @@ import time
 
 import numpy as np
 
-import flax.serialization
-
 from efficientvideoclassification_youtube8m_tpu.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_tpu.data import (
     AggregatedDataLoader,
@@ -32,13 +30,17 @@ from efficientvideoclassification_youtube8m_tpu.ensemble import (
 )
 from efficientvideoclassification_youtube8m_tpu.models import get_model
 from efficientvideoclassification_youtube8m_tpu.train.step import preprocess_batch
+from efficientvideoclassification_youtube8m_tpu.train import serialization
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 logger = logging.getLogger("inference_ensemble")
 
 
 def load_head(path: str):
     with open(path, "rb") as f:
-        raw = flax.serialization.msgpack_restore(f.read())
+        raw = serialization.msgpack_restore(f.read())
     # num_models absent in pre-r5 head checkpoints -> no K validation
     k = raw.get("num_models")
     return (raw["model"], raw["params"], int(raw["input_size"]),
@@ -136,6 +138,7 @@ def inference(args):
 
 def main(argv=None):
     flags_lib.setup_logging()
+    enable_compilation_cache()
     parser = flags_lib.base_parser("Ensemble inference over prior CSVs")
     parser.add_argument("--output_file", required=True)
     parser.add_argument("--preds_pattern", required=True)

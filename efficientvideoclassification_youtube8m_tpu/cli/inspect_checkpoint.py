@@ -15,11 +15,13 @@ import sys
 
 import numpy as np
 
-import flax.serialization
-
 from efficientvideoclassification_youtube8m_tpu.data.tf_checkpoint import (
     TFCheckpointReader,
     is_tf_checkpoint,
+)
+from efficientvideoclassification_youtube8m_tpu.train import serialization
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
 )
 
 
@@ -48,12 +50,14 @@ def print_tensors_in_checkpoint_file(
     if os.path.isdir(file_name):
         # --checkpoint_format orbax writes a directory; restore without a
         # template (orbax returns the raw host pytree as saved)
-        import orbax.checkpoint as ocp
+        from efficientvideoclassification_youtube8m_tpu.train.checkpoint import (
+            _orbax_checkpointer,
+        )
 
-        raw = ocp.StandardCheckpointer().restore(os.path.abspath(file_name))
+        raw = _orbax_checkpointer().restore(os.path.abspath(file_name))
     else:
         with open(file_name, "rb") as f:
-            raw = flax.serialization.msgpack_restore(f.read())
+            raw = serialization.msgpack_restore(f.read())
 
     def walk(node, path=""):
         if isinstance(node, dict):
@@ -75,6 +79,7 @@ def print_tensors_in_checkpoint_file(
 
 
 def main(argv=None):
+    enable_compilation_cache()
     parser = argparse.ArgumentParser("Inspect a msgpack checkpoint")
     parser.add_argument("--file_name", required=True)
     parser.add_argument("--tensor_name", default="")

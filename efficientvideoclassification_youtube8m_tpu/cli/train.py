@@ -25,6 +25,9 @@ from efficientvideoclassification_youtube8m_tpu.train import (
     restore_checkpoint,
 )
 from efficientvideoclassification_youtube8m_tpu.utils import summary as summary_lib
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 logger = logging.getLogger("train")
 
@@ -196,7 +199,8 @@ def train(args) -> None:
 
 def main(argv=None):
     flags_lib.setup_logging()
-    parser = flags_lib.base_parser("Train teacher+student on YT8M (TPU)")
+    enable_compilation_cache()
+    parser = flags_lib.base_parser("Train teacher+student on YT8M")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     train(args)

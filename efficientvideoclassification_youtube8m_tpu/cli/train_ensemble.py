@@ -16,8 +16,6 @@ import sys
 
 import numpy as np
 
-import flax.serialization
-
 from efficientvideoclassification_youtube8m_tpu.cli import flags as flags_lib
 from efficientvideoclassification_youtube8m_tpu.data import AggregatedDataLoader
 from efficientvideoclassification_youtube8m_tpu.ensemble import PredictionStore
@@ -26,6 +24,10 @@ from efficientvideoclassification_youtube8m_tpu.models import get_model
 from efficientvideoclassification_youtube8m_tpu.train.optimizer import (
     exponential_decay,
     make_optimizer,
+)
+from efficientvideoclassification_youtube8m_tpu.train import serialization
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
 )
 
 logger = logging.getLogger("train_ensemble")
@@ -121,7 +123,7 @@ def train_ensemble(args):
 
     os.makedirs(os.path.dirname(args.head_checkpoint) or ".", exist_ok=True)
     with open(args.head_checkpoint, "wb") as f:
-        f.write(flax.serialization.to_bytes({
+        f.write(serialization.to_bytes({
             "model": args.model,
             "params": jax.device_get(head_params),
             "input_size": cfg.total_feature_size,
@@ -134,6 +136,7 @@ def train_ensemble(args):
 
 def main(argv=None):
     flags_lib.setup_logging()
+    enable_compilation_cache()
     parser = flags_lib.base_parser("Train an ensemble head over K CSVs")
     parser.add_argument("--preds_pattern", required=True)
     parser.add_argument("--head_checkpoint", required=True)

@@ -26,6 +26,9 @@ from efficientvideoclassification_youtube8m_tpu.train import (
     restore_checkpoint,
 )
 from efficientvideoclassification_youtube8m_tpu.utils import summary as summary_lib
+from efficientvideoclassification_youtube8m_tpu.utils.compile_cache import (
+    enable_compilation_cache,
+)
 
 logger = logging.getLogger("validate")
 
@@ -151,8 +154,7 @@ def evaluate(args):
             "video-level models with cli.eval --frame_features=False."
         )
     host = distributed.host_context(cfg.batch_size)
-    flags_lib.resolve_steps_per_dispatch(
-        args, process_count=host.process_count, logger=logger)
+    flags_lib.resolve_steps_per_dispatch(args, logger=logger)
     from efficientvideoclassification_youtube8m_tpu.parallel import place_fields
 
     optimizer = make_optimizer(cfg.optimizer, cfg.clip_gradient_norm)
@@ -209,14 +211,13 @@ def evaluate(args):
 
 def main(argv=None):
     flags_lib.setup_logging()
-    parser = flags_lib.base_parser("Validate the student on YT8M (TPU)")
+    enable_compilation_cache()
+    parser = flags_lib.base_parser("Validate the student on YT8M")
     parser.add_argument("--steps_per_dispatch", type=int, default=0,
                         help="K>1: scan K batches per device launch (one "
                         "packed fetch) — amortizes per-launch dispatch "
                         "latency; epoch metrics are bit-identical. "
-                        "Default 0 = auto: 24 on TPU single-process (the "
-                        "measured-fastest K), 1 for multi-host or non-TPU "
-                        "backends. Pass 1 to force per-batch dispatch")
+                        "Default 0 = auto: 1 (per-batch dispatch)")
     args = parser.parse_args(argv)
     flags_lib.dump_flags(args, logger)
     evaluate(args)

@@ -10,7 +10,7 @@ producer/consumer design:
       -> batch assembler with an in-memory shuffle buffer
 
 Batches carry RAW uint8 features — dequantize/l2-normalize run on the
-TPU inside the jitted step — so host->device traffic is 1/4 of the f32
+device inside the jitted step — so host->device traffic is 1/4 of the f32
 equivalent. Files can be sharded across hosts (`shard_index` /
 `num_shards`) for data-parallel multi-host input.
 

@@ -9,7 +9,7 @@ Mirrors the two readers in
   * video-level (`YT8MAggregatedFeatureReader:53-112`): Example with
     {id, labels} plus fixed-length float feature vectors.
 
-TPU-first difference: the frame features stay **uint8** all the way to
+Design difference: the frame features stay **uint8** all the way to
 the device; dequantize/normalize run inside the jitted step
 (ops/preprocess.py). Padding/truncation to max_frames happens on the
 host into preallocated batch buffers.

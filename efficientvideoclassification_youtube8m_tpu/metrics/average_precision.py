@@ -8,8 +8,8 @@ AP@n with the reference's seeded-shuffle tie-break (`_shuffle`,
 ordering and therefore exact GAP parity, so it is reproduced verbatim
 in behavior (random.seed(0) + random.sample).
 
-Host-throughput design (the device eval step emits ~44k videos/s on one
-v5e chip; the host has ONE core): the heap lives in parallel float64
+Host-throughput design (the host aggregation must keep up with the
+device eval step from one core): the heap lives in parallel float64
 numpy arrays and `accumulate` pushes WHOLE BATCHES through a C kernel
 replaying CPython heapq's exact layout (data/native/heap.cc), and the
 AP sweep is vectorized with a cumulative sum whose left-to-right

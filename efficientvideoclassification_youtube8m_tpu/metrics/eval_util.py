@@ -1,7 +1,7 @@
 """Evaluation metrics: Hit@1, PERR, GAP, and the epoch aggregator.
 
 Numerics-parity with `/root/reference/code_student_uniform/eval_util.py`,
-with one TPU-era addition: the per-video top-k extraction (the O(B*4716)
+with one device-side addition: the per-video top-k extraction (the O(B*4716)
 host-side argpartition the reference runs every step, `eval_util.py:82-124`)
 can instead be done on-device with `jax.lax.top_k`, and the host only
 touches the [B, k] result (`topk_on_device` + `accumulate_topk`).
@@ -174,7 +174,7 @@ def topk_and_perr_on_device(predictions, labels, k: int):
 
     The eval/train-metric steps need both the top-k (values AND
     indices) and the PERR threshold tau (the n-th largest score), and
-    each costs a full-row sort on TPU — this fuses them into a single
+    each costs a full-row sort — this fuses them into a single
     `sort_key_val`. Outputs are BIT-IDENTICAL to the separate ops
     (tests/test_metrics_fast.py pins it):
       * top_k ties break lowest-index-first (XLA TopK contract), which
@@ -230,10 +230,9 @@ def perr_precision_on_device(predictions, labels):
     labels contribute 0 (matching the reference's `[-0:]` whole-row
     slice, whose precision is 0/num_classes = 0).
 
-    TPU shape: a VALUE sort finds each row's n-th-largest score tau,
+    Shape: a VALUE sort finds each row's n-th-largest score tau,
     then hits are counted by thresholding — no argsort and no [B, V]
-    gathers (which cost ~50 ms at batch 512 on v5e; this form is ~3 ms,
-    an 18x eval-path win). Scores strictly above tau are in the top-n by
+    gathers. Scores strictly above tau are in the top-n by
     definition; of the tau-ties, only (n - #above) fit. The reference's
     argpartition keeps an ARBITRARY subset of the ties, so the unbiased
     rule here apportions the capacity proportionally — the expectation

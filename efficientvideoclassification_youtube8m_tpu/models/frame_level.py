@@ -1,15 +1,16 @@
 """Frame-level models.
 
 Re-designs of `/root/reference/code_student_uniform/frame_level_models.py`
-for TPU. The flagship is `HierarchicalLstmModel`: the reference runs 20
+in JAX. The flagship is `HierarchicalLstmModel`: the reference runs 20
 separate `dynamic_rnn` calls (one per 15-frame chunk) sharing one 2-layer
 LSTM, stacks the 20 final states, and runs a second 2-layer LSTM over
 them (frame_level_models.py:237-257).
 
-TPU-first mapping: the 20 chunks are *folded into the batch axis* —
+Mapping: the 20 chunks are *folded into the batch axis* —
 [B, 300, D] -> [B*20, 15, D] — so L1 is ONE 15-step scan whose per-step
-recurrent matmul has batch B*20 (big MXU tiles, and an embarrassingly
-parallel axis that sequence-parallel sharding can split across devices).
+recurrent matmul has batch B*20 (large matrix-unit tiles, and an
+embarrassingly parallel axis that sequence-parallel sharding can split
+across devices).
 L2 is a single 20-step scan over the stacked chunk states.
 """
 
@@ -80,61 +81,16 @@ class HierarchicalLstmModel:
         dropout_keep_prob=1.0,
         rng: Optional[jax.Array] = None,
         scan_unroll: int = 1,
-        use_pallas: bool = False,
-        pallas_train: bool = False,
-        pallas_train_interpret: bool = False,
         **classifier_kwargs,
     ) -> Dict[str, Any]:
         B, T, D = model_input.shape
         assert T % num_chunks == 0, (T, num_chunks)
         chunk_len = T // num_chunks
 
-        def xla_scan_fn(p, xs, seq):
+        def scan_fn(p, xs, seq):
             return multi_lstm_scan(
                 p, xs, seq, compute_dtype=compute_dtype, unroll=scan_unroll,
             )
-
-        if pallas_train:
-            # differentiable fused kernels (--lstm_pallas_train): the
-            # sequential fwd/bwd chains run in one Pallas kernel per
-            # layer/direction; the dW/dx matmuls stay XLA
-            from efficientvideoclassification_youtube8m_tpu.ops.pallas import (
-                lstm_scan,
-            )
-
-            def scan_fn(p, xs, seq):
-                bsz = xs.shape[0]
-                tile = lstm_scan.train_tile_for(
-                    bsz, p[0]["kernel"].shape[-1] // 4)
-                if tile is None:
-                    return xla_scan_fn(p, xs, seq)
-                return lstm_scan.multi_lstm_scan_train_pallas(
-                    p, xs, seq, tile_b=tile,
-                    bwd_tile_b=min(tile, lstm_scan.TRAIN_BWD_TILE_B),
-                    interpret=pallas_train_interpret)
-        elif use_pallas:
-            # fused inference kernel (forward-only, bf16):
-            # ops/pallas/lstm_scan.py. Mosaic needs batch tiles with a
-            # multiple-of-8 sublane dim — fall back to the XLA scan for
-            # odd batch sizes.
-            from efficientvideoclassification_youtube8m_tpu.ops.pallas import (
-                multi_lstm_scan_pallas,
-            )
-
-            def scan_fn(p, xs, seq):
-                bsz = xs.shape[0]
-                # tile_b=128 measured fastest on v5e (5.63 ms vs 5.87 at
-                # 256 and 6.02 at 64 on the student L1 layer pair) —
-                # lighter VMEM pressure overlaps the x-proj DMAs better
-                tile = next(
-                    (t for t in (128, 64, 32, 16, 8) if bsz % t == 0),
-                    None,
-                )
-                if tile is None:
-                    return xla_scan_fn(p, xs, seq)
-                return multi_lstm_scan_pallas(p, xs, seq, tile_b=tile)
-        else:
-            scan_fn = xla_scan_fn
 
         # L1: fold chunks into the batch axis -> one shared-weight scan.
         x_chunks = model_input.reshape(B * num_chunks, chunk_len, D)
@@ -387,7 +343,7 @@ class NetVLADModel:
     weighted residuals against the cluster centers, intra-normalize per
     cluster, flatten + l2-normalize, hidden FC, video-level classifier.
     Frames past num_frames are masked out of the assignment. Everything
-    is batched matmuls/einsums — MXU-native.
+    is batched matmuls/einsums.
     """
 
     @staticmethod

@@ -9,8 +9,8 @@ weights/biases l2 regularizers the reference registers via
 `slim.l2_regularizer`), and optionally "loss" when the head supplies its
 own training loss.
 
-All heads are one or two dense layers — on TPU these are single MXU
-matmuls; the MoE head's two [B, 4096] x [4096, ~14k] matmuls dominate
+All heads are one or two dense layers — single matrix products; the
+MoE head's two [B, 4096] x [4096, ~14k] matmuls dominate
 and are the natural tensor-parallel shard axis (see parallel/sharding).
 """
 
@@ -40,12 +40,12 @@ class MoeModel:
     m+1 gates per (batch, class); sigmoid experts; prediction = sum of the
     first m gate*expert products.
 
-    TPU layout note: the reference's weight columns interleave class-major
+    Layout note: the reference's weight columns interleave class-major
     (`reshape(-1, m+1)`), which would put the softmax/sigmoid on
-    [B*vocab, m+1]-shaped tensors — 3 of 128 vector lanes used. Weights
+    [B*vocab, m+1]-shaped tensors with a 3-wide minor axis. Weights
     here are stored [D, m(+1), vocab] so every elementwise op runs on
-    [B, m, vocab] with the class axis on the lanes (>20x faster at
-    production sizes) and the math is exactly the reference's. A TF
+    [B, m, vocab] with the long class axis minor, and the math is
+    exactly the reference's. A TF
     checkpoint column c*(m+1)+k maps to [:, k, c].
     """
 

@@ -1,4 +1,4 @@
-"""TF1-semantics LSTM as a TPU-friendly `lax.scan`.
+"""TF1-semantics LSTM as a `lax.scan`.
 
 Reproduces the exact math of the reference's recurrent stack
 (`/root/reference/code_student_uniform/frame_level_models.py:221-257`):
@@ -19,12 +19,12 @@ Semantics that must hold for parity (and are covered by tests):
     cell is skipped entirely — emitted output is zero and the carried state
     is frozen; a zero-length sequence yields the zero state.
 
-TPU-first design notes:
+Design notes:
 
   * The input projection ``x_t @ Wx`` for all timesteps is hoisted out of
-    the scan into ONE large ``[B*T, D] @ [D, 4H]`` matmul that tiles onto
-    the MXU; the scan body only performs the unavoidable recurrent
-    ``h @ Wh`` matmul plus VPU elementwise gate math.
+    the scan into ONE large ``[B*T, D] @ [D, 4H]`` matmul; the scan body
+    only performs the unavoidable recurrent ``h @ Wh`` matmul plus the
+    elementwise gate math.
   * Layers run sequentially over the full sequence (exact for stacked
     LSTMs — no intra-step feedback), so each layer is again one hoisted
     matmul + one scan, instead of an interleaved per-step multi-layer cell.
@@ -106,14 +106,14 @@ def _lstm_layer_scan(
     """
     B, T, D = xs.shape
     H = params["kernel"].shape[-1] // 4
-    # Accumulate in f32 (MXU-native) unless running a float64 parity check.
+    # Accumulate in f32 unless running a float64 parity check.
     acc_dtype = jnp.float64 if compute_dtype == jnp.float64 else jnp.float32
     low_precision = compute_dtype == jnp.bfloat16
     w_x = params["kernel"][:D].astype(compute_dtype)
     w_h = params["kernel"][D:].astype(compute_dtype)
     bias = params["bias"].astype(acc_dtype)
 
-    # Hoisted input projection: one MXU-sized matmul for every timestep.
+    # Hoisted input projection: one large matmul for every timestep.
     # In bf16 mode the [B, T, 4H] intermediate is stored in bf16 — it is
     # the largest HBM tensor in the model (e.g. 1.26 GB/layer f32 for the
     # teacher L1) and its round-trip bounds the scan's bandwidth; the

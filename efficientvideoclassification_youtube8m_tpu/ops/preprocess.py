@@ -9,8 +9,8 @@ The reference does all of this inside the TF graph / TF input pipeline:
   * every-Nth-frame student subsampling (transpose/gather/transpose) —
     `/root/reference/code_student_uniform/train.py:265-272`
 
-TPU-first: the host loader hands over the RAW uint8 features (4x less
-PCIe/DCN traffic than f32) and these run fused under `jit` on device,
+The host loader hands over the RAW uint8 features (4x less host->device
+traffic than f32) and these run fused under `jit` on device,
 where XLA folds dequantize + l2-normalize + strided gather into the
 surrounding computation.
 """
@@ -60,7 +60,7 @@ def uniform_subsample(x: jax.Array, every_n: int, axis: int = 1) -> jax.Array:
 def host_subsample(features_u8, every_n: int):
     """HOST-side every-n frame stride on the raw uint8 batch — applied
     before the device transfer so student-only paths (eval / inference /
-    serving) move 1/every_n the bytes over PCIe/relay. Semantically the
+    serving) move 1/every_n the bytes over PCIe. Semantically the
     same strided slice as `uniform_subsample`; contiguity matters for
     the transfer."""
     import numpy as np
@@ -79,7 +79,7 @@ def student_num_frames(num_frames: jax.Array, every_n: int, max_frames: int = 30
     the reference to 49 — shifting the student's sequence-length masks).
     A host-built float64 table indexed by the capped frame count
     reproduces the reference bit-exactly inside jit without needing f64
-    on the TPU; every_n/max_frames are static, so the 301-entry table is
+    on the device; every_n/max_frames are static, so the 301-entry table is
     a compile-time constant and the lookup is one tiny gather."""
     import numpy as np
 

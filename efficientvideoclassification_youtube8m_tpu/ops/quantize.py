@@ -1,8 +1,8 @@
 """int8 quantized student inference path.
 
 Serving is the paper's deliverable (`create_model_inference`,
-/root/reference/code_student_uniform/frame_level_models.py:269-338) and
-the v5e MXU runs int8 x int8 -> int32 matmuls at twice the bf16 rate.
+/root/reference/code_student_uniform/frame_level_models.py:269-338), and
+int8 x int8 -> int32 matmuls halve the weight bytes of the bf16 path.
 This module provides a weight+activation int8 forward for the flagship
 HierarchicalLstm student (and teacher):
 
@@ -11,7 +11,7 @@ HierarchicalLstm student (and teacher):
     input ranges — and per column of the MoE gates/experts);
   * activations: dynamic per-row symmetric int8 (the l2-normalized
     inputs and tanh-bounded h are well-conditioned for it);
-  * accumulation: int32 on the MXU, rescaled to f32; all gate/softmax/
+  * accumulation: int32, rescaled to f32; all gate/softmax/
     sigmoid math stays f32 — the "keep gate math f32" recipe.
 
 Exposed through `serving.Predictor(..., quantize="int8")`; accuracy is
@@ -21,7 +21,7 @@ bf16 path on the learnable-synthetic eval).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +50,7 @@ def _row_quant(x: jax.Array):
 
 def int8_dot(x: jax.Array, w_q: jax.Array, w_scale: jax.Array) -> jax.Array:
     """f32 activations [..., D] x int8 weights [D, N] -> f32 [..., N]
-    through an int8 x int8 -> int32 MXU matmul."""
+    through an int8 x int8 -> int32 matmul."""
     x_q, x_scale = _row_quant(x)
     y = jax.lax.dot_general(
         x_q, w_q,
@@ -79,7 +79,7 @@ def quantize_lstm_cell(cell: Dict[str, jax.Array], input_size: int):
 def _quantized_lstm_layer_scan(qp, xs, seq_len, forget_bias: float = 1.0,
                                unroll: int = 1):
     """_lstm_layer_scan (ops/lstm.py:95-165) with both matmul sites on
-    the int8 MXU path; gate math and carries stay f32."""
+    the int8 matmul path; gate math and carries stay f32."""
     B, T, D = xs.shape
     H = qp["wx_q"].shape[-1] // 4
     bias = qp["bias"]
@@ -124,40 +124,6 @@ def quantized_multi_lstm_scan(qparams: List[dict], xs, seq_len,
     for qp in qparams:
         outs, c_fin, h_fin = _quantized_lstm_layer_scan(
             qp, layer_in, seq_len, forget_bias, unroll
-        )
-        state_parts.extend([c_fin, h_fin])
-        layer_in = outs
-    return jnp.concatenate(state_parts, axis=-1)
-
-
-def quantized_multi_lstm_scan_pallas(qparams: List[dict], xs, seq_len,
-                                     unroll: int = 1,
-                                     interpret: bool = False):
-    """Stacked int8 LSTM with the fused Pallas chunk kernel per layer
-    (ops/pallas/lstm_scan.py:_lstm_chunk_kernel_int8): the recurrent
-    int8 matmul + gate math run inside ONE kernel per layer, removing
-    the per-step XLA loop overhead that bounds the scan path. The input
-    projection stays outside as one big int8 XLA matmul. Inter-layer
-    outputs are bf16 (same as the bf16 Pallas path)."""
-    from efficientvideoclassification_youtube8m_tpu.ops.pallas import (
-        lstm_chunk_scan_pallas_int8,
-    )
-
-    B = xs.shape[0]
-    # tile 128: the int32 accumulator + quantization temporaries add
-    # ~5 MB of scoped VMEM over the bf16 kernel, so its 256-row tile
-    # OOMs the 16 MB budget here (measured on v5e)
-    tile = next((t for t in (128, 64, 32, 16, 8) if B % t == 0), None)
-    if tile is None:
-        return quantized_multi_lstm_scan(qparams, xs, seq_len, unroll=unroll)
-    layer_in = jnp.swapaxes(xs, 0, 1)  # [T, B, D] time-major
-    state_parts = []
-    for qp in qparams:
-        x_proj = int8_dot(layer_in.astype(jnp.float32),
-                          qp["wx_q"], qp["wx_scale"])  # [T, B, 4H] f32
-        outs, c_fin, h_fin = lstm_chunk_scan_pallas_int8(
-            x_proj, qp["wh_q"], qp["wh_scale"], qp["bias"], seq_len,
-            tile_b=tile, interpret=interpret,
         )
         state_parts.extend([c_fin, h_fin])
         layer_in = outs
@@ -212,19 +178,17 @@ def quantize_hierarchical_params(params: Dict[str, Any], input_size: int,
 def quantized_hierarchical_forward(
     qparams, model_input: jax.Array, num_frames: jax.Array,
     num_chunks: int, vocab_size: int, num_mixtures: int,
-    scan_unroll: int = 1, use_pallas: bool = False,
+    scan_unroll: int = 1,
 ):
     """HierarchicalLstmModel.apply (models/frame_level.py:70-151) with
-    every matmul on the int8 MXU path. Inference only (no dropout, no
-    losses); returns predictions [B, vocab]. `use_pallas` fuses each
-    layer's T-step recurrence into one kernel (single-device TPU)."""
+    every matmul on the int8 path. Inference only (no dropout, no
+    losses); returns predictions [B, vocab]."""
     B, T, D = model_input.shape
     assert T % num_chunks == 0, (T, num_chunks)
     chunk_len = T // num_chunks
-    scan = ((lambda qp, xs, seq: quantized_multi_lstm_scan_pallas(
-                qp, xs, seq, unroll=scan_unroll)) if use_pallas
-            else lambda qp, xs, seq: quantized_multi_lstm_scan(
-                qp, xs, seq, unroll=scan_unroll))
+
+    def scan(qp, xs, seq):
+        return quantized_multi_lstm_scan(qp, xs, seq, unroll=scan_unroll)
 
     x_chunks = model_input.reshape(B * num_chunks, chunk_len, D)
     chunk_starts = chunk_len * jnp.arange(num_chunks, dtype=jnp.int32)

@@ -2,7 +2,7 @@
 
 The reference's distribution story is a TF1 grpc parameter-server
 scaffold keyed off TF_CONFIG (`train.py:654-733`) that its own authors
-bypassed. The TPU-native replacement is single-controller-per-host SPMD:
+bypassed. The replacement here is single-controller-per-host SPMD:
 
   * `initialize()` — `jax.distributed.initialize` (coordinator address /
     process id from the environment, honoring the same TF_CONFIG shape

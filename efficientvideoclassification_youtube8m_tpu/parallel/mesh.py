@@ -4,7 +4,8 @@ Replaces the reference's vestigial TF1 ps/worker scaffolding
 (`/root/reference/code_student_uniform/train.py:654-699`, bypassed by
 its own authors at train.py:477-479) with first-class SPMD:
 
-  * mesh axes ("data", "model") over ICI;
+  * mesh axes ("data", "model") over the devices (cards joined all to
+    all, so the mesh shape follows the algorithm alone);
   * batch sharded over "data" (pure DP is the workload's natural
     parallelism — and because the hierarchical model folds its 20 L1
     chunks into the batch axis, DP over batch IS sequence-block
@@ -16,7 +17,7 @@ its own authors at train.py:477-479) with first-class SPMD:
     replicates.
 
 No parameter server: optimizer state is replicated/sharded with the
-params and gradients are reduced by XLA's psum over ICI.
+params and gradients are reduced by XLA's all-reduce (NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -171,7 +172,7 @@ def device_prefetch(loader, mesh: Mesh, depth: int = 1, host_keep=None):
     transfer running `depth` batches ahead.
 
     `jax.device_put` is asynchronous, so issuing batch k+1's transfer
-    before batch k's step is dispatched overlaps PCIe/ICI copy time with
+    before batch k's step is dispatched overlaps PCIe copy time with
     device compute — the double-buffering the reference gets from its
     queue runners feeding the device (train.py:170-176). Costs `depth`
     extra batches of HBM. Only `host_keep(batch)` rides along on the

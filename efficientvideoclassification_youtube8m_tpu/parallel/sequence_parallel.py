@@ -5,7 +5,7 @@ The reference's sequence-scaling mechanism is the two-level hierarchy:
 "long-context"). Under pure DP those blocks parallelize via the folded
 batch axis; THIS module shards the BLOCK axis itself across the mesh —
 each device runs L1 on its slice of every video's chunks, one
-`all_gather` over ICI assembles the 20 block states, and the (tiny)
+`all_gather` assembles the 20 block states, and the (tiny)
 20-step L2 runs replicated. Useful when the batch is small relative to
 the device count (long-video / low-latency serving).
 

@@ -2,7 +2,7 @@
 
 One `jit` with explicit in/out shardings over the ("data", "model") mesh:
 GSPMD partitions the program — batch math over "data", the MoE head's
-wide matmuls over "model" — and inserts the gradient psums over ICI.
+wide matmuls over "model" — and inserts the gradient all-reduces.
 State buffers are donated so optimizer updates are in-place.
 """
 
@@ -250,9 +250,8 @@ def build_sharded_eval_step_stacked(
     program amortizes it K-fold and the whole stack's outputs cross the
     device->host edge in one transfer. The scan body IS
     build_eval_step's math on each [B, ...] slice, so epoch metrics are
-    bit-identical to the per-batch program (tests/test_stacked_eval.py;
-    measured bit-identical on the TPU at batch 1024). Caveat: bitwise
-    equality is up to the COMPILER — XLA:CPU can vectorize the CE
+    bit-identical to the per-batch program (tests/test_stacked_eval.py).
+    Caveat: bitwise equality is up to the COMPILER — XLA:CPU can vectorize the CE
     reduction differently inside a scan body than standalone, shifting
     per-example loss by an f32 ulp for some weights (rank metrics stay
     exact; the CLI identity tests pin loss to ulp tolerance).
@@ -323,8 +322,8 @@ def _shardmap_train(step, mesh, metric_scalars, feature_ndim: int = 3,
     replicated state in/out, batch sharded over "data", topk concatenated.
 
     Unlike the GSPMD jit path (where the partitioner chooses the
-    collectives), the per-device program and its single gradient psum over
-    ICI are explicit — the scaling-book recipe written by hand. Gradients
+    collectives), the per-device program and its single gradient psum
+    are explicit — the scaling-book recipe written by hand. Gradients
     are psum'd inside the step, so the replicated optimizer update is
     identical on every device and the out-spec P() state replication
     holds by construction."""
@@ -352,38 +351,27 @@ def _shardmap_train(step, mesh, metric_scalars, feature_ndim: int = 3,
 
 def build_shardmap_distill_step(
     cfg: TrainConfig, optimizer: Optimizer, mesh: Mesh, top_k: int = 20,
-    pallas_train_mode: str = None,
 ):
     """Data-parallel distillation TRAIN step via shard_map (explicit
-    per-device grads + one psum over ICI). Requires model_parallelism == 1;
-    use build_sharded_distill_step (GSPMD) for tensor-parallel meshes.
-
-    Under shard_map the per-device program is explicit, so the fused
-    Pallas TRAIN kernels (opaque to GSPMD) run at any mesh size when
-    `cfg.lstm_pallas_train` holds on TPU. `pallas_train_mode` overrides:
-    "interpret" runs them through the Pallas interpreter (multi-device
-    parity on the virtual CPU mesh — dryrun_multichip and
-    tests/test_parallel.py), "off" forces the XLA scan."""
+    per-device grads + one psum). Requires model_parallelism == 1;
+    use build_sharded_distill_step (GSPMD) for tensor-parallel meshes."""
     if mesh.shape.get("model", 1) != 1:
         raise ValueError("shard_map train path is data-parallel only")
     step = build_distill_train_step(cfg, optimizer, top_k,
-                                    axis_name=DATA_AXIS,
-                                    pallas_train_mode=pallas_train_mode)
+                                    axis_name=DATA_AXIS)
     return _shardmap_train(step, mesh, _DISTILL_SCALARS, with_perr=True)
 
 
 def build_shardmap_finetune_step(
     cfg: TrainConfig, optimizer: Optimizer, mesh: Mesh, top_k: int = 20,
     host_subsampled: bool = False, aggregated: bool = False,
-    pallas_train_mode: str = None,
 ):
     """Data-parallel student-only TRAIN step via shard_map."""
     if mesh.shape.get("model", 1) != 1:
         raise ValueError("shard_map train path is data-parallel only")
     step = build_finetune_step(cfg, optimizer, top_k, axis_name=DATA_AXIS,
                                host_subsampled=host_subsampled,
-                               aggregated=aggregated,
-                               pallas_train_mode=pallas_train_mode)
+                               aggregated=aggregated)
     return _shardmap_train(
         step, mesh, ("student_label_loss", "student_reg_loss"),
         feature_ndim=2 if aggregated else 3, with_perr=True,
@@ -396,25 +384,14 @@ def build_shardmap_eval_step(
     top_k: int = 20,
 ):
     """DP eval step via shard_map: each device runs the per-shard program
-    on its local batch slice with replicated params.
-
-    Unlike the GSPMD (jit-with-shardings) path, the per-device program is
-    explicit — which is what lets Pallas kernels (opaque to GSPMD's
-    partitioner) run under a multi-device data-parallel mesh. Metrics
-    concatenate along the batch axis; requires model_parallelism == 1.
+    on its local batch slice with replicated params. Metrics concatenate
+    along the batch axis; requires model_parallelism == 1.
     """
     if mesh.shape.get("model", 1) != 1:
         raise ValueError("shard_map eval path is data-parallel only")
     from jax.sharding import PartitionSpec as P
 
-    # per-device programs are explicit under shard_map, so the Pallas
-    # kernels are eligible even with multiple devices
-    use_pallas = (
-        cfg.use_pallas_inference
-        and cfg.compute_dtype == "bfloat16"
-        and jax.default_backend() == "tpu"
-    )
-    step = build_eval_step(cfg, top_k, pallas_override=use_pallas)
+    step = build_eval_step(cfg, top_k)
 
     batch_specs = (
         P(),  # params: replicated

@@ -2,9 +2,8 @@
 
 The production counterpart of the CSV-driven inference binaries: load a
 checkpoint once, then call `predict` on uint8 frame batches. Uses the
-same jitted forward as cli/eval (Pallas fused LSTM on single-chip bf16),
-with automatic batch padding so arbitrary request sizes hit one compiled
-program.
+same jitted forward as cli/eval, with automatic batch padding so
+arbitrary request sizes hit one compiled program.
 
     from efficientvideoclassification_youtube8m_tpu.serving import Predictor
     p = Predictor.from_checkpoint("./model_finetune/")
@@ -13,9 +12,8 @@ program.
 
 Serves the STUDENT (the paper's deliverable: ~10x fewer frames). Pass
 `tower="teacher"` against a distillation checkpoint to serve the teacher.
-Measured ~51,800 videos/s on one v5e chip at batch 512
-(student frames are strided on the host, so requests also move only
-1/every_n of the uint8 bytes to the device).
+Student frames are strided on the host, so requests move only
+1/every_n of the uint8 bytes to the device.
 
 Multi-device: pass `mesh=` (and optionally `sequence_parallel=True`).
 With sequence parallelism the CHUNK axis of each video is sharded over
@@ -79,15 +77,8 @@ class Predictor:
             self.params = jax.device_put(params)
         elif mesh is not None:
             # data-parallel serving: replicated params, batch rows over
-            # "data". The per-device program is explicit (shard_map), so
-            # the Pallas fused LSTM stays eligible under multi-device DP.
+            # "data", one explicit per-device program (shard_map)
             from jax.sharding import PartitionSpec as P
-
-            use_pallas = (
-                cfg.use_pallas_inference
-                and cfg.compute_dtype == "bfloat16"
-                and jax.default_backend() == "tpu"
-            )
 
             def local_fwd(params, features_u8, num_frames):
                 if tower == "student":
@@ -96,8 +87,7 @@ class Predictor:
                                              cfg.max_num_frames)
                     xs = preprocess_batch(cfg, features_u8, nfs)
                     out = forward_student(cfg, params, xs, nfs,
-                                          inference=True,
-                                          pallas_override=use_pallas)
+                                          inference=True)
                 else:
                     model_input = preprocess_batch(cfg, features_u8,
                                                    num_frames)
@@ -135,10 +125,9 @@ class Predictor:
     def _build_int8_fwd(self, cfg: TrainConfig, params, tower: str,
                         mesh, sequence_parallel: bool):
         """int8 weight+activation forward (ops/quantize.py): both LSTM
-        matmul sites and the MoE head run int8 x int8 -> int32 on the
-        MXU (2x the bf16 rate on v5e); gate math stays f32. Params are
-        quantized ONCE here (per-channel scales) and live on device as
-        int8 — half the HBM of bf16 weights."""
+        matmul sites and the MoE head run int8 x int8 -> int32; gate math
+        stays f32. Params are quantized ONCE here (per-channel scales)
+        and live on device as int8 — half the bytes of bf16 weights."""
         from efficientvideoclassification_youtube8m_tpu.ops.quantize import (
             quantize_hierarchical_params,
             quantized_hierarchical_forward,
@@ -158,15 +147,6 @@ class Predictor:
         self.params = jax.device_put(quantize_hierarchical_params(
             params, cfg.total_feature_size, cfg.lstm_cells, cfg.lstm_layers
         ))
-        # the fused int8 Pallas recurrence is opaque to GSPMD; it runs
-        # single-chip under plain jit, or under shard_map (explicit
-        # per-device programs) for data-parallel meshes — same rule as
-        # the bf16 inference path
-        use_pallas = (
-            cfg.use_pallas_inference
-            and jax.default_backend() == "tpu"
-            and (mesh is not None or jax.device_count() == 1)
-        )
 
         def fwd(qparams, features_u8, num_frames):
             if tower == "student":
@@ -177,13 +157,13 @@ class Predictor:
             return quantized_hierarchical_forward(
                 qparams, model_input, num_frames, num_chunks,
                 cfg.num_classes, cfg.moe_num_mixtures,
-                scan_unroll=cfg.scan_unroll, use_pallas=use_pallas,
+                scan_unroll=cfg.scan_unroll,
             )
 
         if mesh is None:
             return jax.jit(fwd)
         # data-parallel int8 serving: replicated int8 params, batch rows
-        # over "data"; per-device programs keep the fused kernel eligible
+        # over "data"
         from jax.sharding import PartitionSpec as P
 
         mapped = jax.shard_map(

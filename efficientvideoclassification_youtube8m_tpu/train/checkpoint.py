@@ -7,11 +7,12 @@ surgery" (train_convert_model.py:360-401) becomes subtree selection on
 the state pytree (`train/state.py:student_state_from_distill`).
 
 Two interchangeable backends:
-  * "msgpack" (default) — one flax-serialization file; simple, fast,
-    single-host;
-  * "orbax" — `orbax.checkpoint.StandardCheckpointer` directories;
-    TPU-native path for sharded/multi-host state (each host writes its
-    shards; restore places onto the mesh).
+  * "msgpack" (default) — one file in flax's msgpack layout, written and
+    read by `train/serialization.py`; simple, fast, single-host;
+  * "orbax" — `orbax.checkpoint.StandardCheckpointer` directories, for
+    sharded/multi-host state (each host writes its shards; restore
+    places onto the mesh). Optional: orbax is imported only when this
+    backend is used, and a clear error says so when it is missing.
 `latest_checkpoint`/`restore_checkpoint` auto-detect either format.
 """
 
@@ -24,17 +25,23 @@ import shutil
 import threading
 from typing import Any, List, Optional
 
-import flax.serialization
 import jax
 import numpy as np
+
+from efficientvideoclassification_youtube8m_tpu.train import serialization
 
 _POINTER = "checkpoint"
 _PREFIX = "model.ckpt"
 
 
 def _orbax_checkpointer():
-    import orbax.checkpoint as ocp
-
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "--checkpoint_format orbax needs the orbax-checkpoint package, "
+            "which is not installed; use --checkpoint_format msgpack"
+        ) from e
     return ocp.StandardCheckpointer()
 
 
@@ -119,7 +126,7 @@ def save_checkpoint(
             state = jax.device_get(state)
             tmp = path + ".tmp"
             with open(tmp, "wb") as f:
-                f.write(flax.serialization.to_bytes(state))
+                f.write(serialization.to_bytes(state))
             os.replace(tmp, path)
     else:
         raise ValueError(f"unknown checkpoint backend {backend!r}")
@@ -164,14 +171,13 @@ class AsyncCheckpointSaver:
 
     The snapshot lands in the device's **pinned_host memory** where the
     backend supports it: the copy streams device->host inside the jitted
-    program, so HBM high-water stays flat. This is not an optimization
-    but a requirement at flagship scale — duplicating the 3.4GB train
-    state in HBM on top of the train step's activation footprint
-    RESOURCE_EXHAUSTED the 16GB v5e (scripts/probe_async_checkpoint.py,
-    r4). Backends whose pinned_host path doesn't execute (XLA:CPU lacks
-    the annotate_device_placement custom call) fall back to an in-HBM
-    copy, and if no snapshot can be taken at all the save runs
-    synchronously with a one-time warning.
+    program, so the device-memory high-water stays flat instead of
+    holding a second copy of the train state (3.2 GiB at the flagship)
+    beside the step's activations. On the GPU this is the mode the saver
+    settles on (chip_smoke.py's snapshot phase checks it). Backends whose
+    pinned_host path doesn't execute (XLA:CPU lacks the placement) fall
+    back to an in-device copy, and if no snapshot can be taken at all
+    the save runs synchronously with a one-time warning.
 
     Multi-host: also async, with the collective-ordering hazard designed
     out rather than avoided. The jitted snapshot runs on the MAIN thread
@@ -208,6 +214,12 @@ class AsyncCheckpointSaver:
         self._mode: Optional[str] = None  # "host" | "hbm", fixed on 1st win
         self._snapshot_fn = None  # jitted donation-safe copy, built lazily
         self._warned_sync = False
+
+    @property
+    def snapshot_mode(self) -> Optional[str]:
+        """"host" (pinned_host), "hbm" (device copy), or None before the
+        first snapshot (or when none could be taken)."""
+        return self._mode
 
     def _run_snapshot(self, mode: str, arrays: List[jax.Array]):
         if self._snapshot_fn is None:
@@ -305,8 +317,8 @@ class AsyncCheckpointSaver:
         snap = self._snapshot(state)
         if snap is None:
             self._sync_save(train_dir, state, step, max_to_keep, backend,
-                            "no snapshot could be taken: pinned_host "
-                            "unsupported and the in-HBM copy failed")
+                            "no snapshot could be taken: neither the "
+                            "pinned_host copy nor the in-device copy ran")
             return
 
         def _write():
@@ -500,17 +512,17 @@ def restore_checkpoint(path: str, target: Any) -> Any:
             os.path.abspath(path), jax.tree.map(abstract, target)
         )
     with open(path, "rb") as f:
-        return flax.serialization.from_bytes(target, f.read())
+        return serialization.from_bytes(target, f.read())
 
 
 def restore_subtree(path: str, target: Any, keys: List[str]) -> Any:
     """Partial restore by top-level field names — the explicit
     name->variable maps of validate.py:350-381 become field selection."""
     with open(path, "rb") as f:
-        raw = flax.serialization.msgpack_restore(f.read())
-    state_dict = flax.serialization.to_state_dict(target)
+        raw = serialization.msgpack_restore(f.read())
+    state_dict = serialization.to_state_dict(target)
     for k in keys:
         if k not in raw:
             raise KeyError(f"checkpoint {path} has no field {k!r}")
         state_dict[k] = raw[k]
-    return flax.serialization.from_state_dict(target, state_dict)
+    return serialization.from_state_dict(target, state_dict)

@@ -8,9 +8,9 @@ train.py:222-242,281,349) becomes one explicit pytree. Checkpoint
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
@@ -19,7 +19,17 @@ from efficientvideoclassification_youtube8m_tpu.train.optimizer import Optimizer
 from efficientvideoclassification_youtube8m_tpu.utils.config import TrainConfig
 
 
-@flax.struct.dataclass
+def _state_dataclass(cls):
+    """Frozen dataclass registered as a pytree (every field a child),
+    with `replace(**fields)` returning an updated copy."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = dataclasses.replace
+    return jax.tree_util.register_dataclass(
+        cls, data_fields=[f.name for f in dataclasses.fields(cls)],
+        meta_fields=[])
+
+
+@_state_dataclass
 class DistillState:
     """Teacher + student joint training state (cli train.py)."""
 
@@ -31,7 +41,7 @@ class DistillState:
     dropout_keep_prob: jax.Array  # the reference's dropout_var
 
 
-@flax.struct.dataclass
+@_state_dataclass
 class StudentState:
     """Student-only state (finetune / eval / inference)."""
 

@@ -28,6 +28,9 @@ import jax
 import jax.numpy as jnp
 
 from efficientvideoclassification_youtube8m_tpu import losses as losses_lib
+from efficientvideoclassification_youtube8m_tpu.metrics.eval_util import (
+    topk_and_perr_on_device,
+)
 from efficientvideoclassification_youtube8m_tpu.models import get_model
 from efficientvideoclassification_youtube8m_tpu.ops.preprocess import (
     dequantize,
@@ -75,10 +78,7 @@ def resolve_label_loss(cfg: TrainConfig):
     return fn
 
 
-def _model_apply_kwargs(cfg: TrainConfig, inference: bool = False,
-                        pallas_override: Optional[bool] = None,
-                        per_device_program: bool = False,
-                        pallas_train_mode: Optional[str] = None) -> Dict[str, Any]:
+def _model_apply_kwargs(cfg: TrainConfig, inference: bool = False) -> Dict[str, Any]:
     kw: Dict[str, Any] = {
         "classifier": cfg.video_level_classifier_model,
         "compute_dtype": jnp.bfloat16
@@ -87,30 +87,6 @@ def _model_apply_kwargs(cfg: TrainConfig, inference: bool = False,
         "scan_unroll": cfg.scan_unroll,
     }
     kw["is_training"] = not inference
-    if not inference:
-        # fused Pallas train kernels: bf16 + TPU. Pallas is opaque to
-        # GSPMD, so the jit-with-shardings paths enable them only
-        # single-chip; under shard_map (per_device_program) the
-        # per-device program is explicit and they run at any mesh size.
-        # `pallas_train_mode` overrides the auto rule: "interpret" forces
-        # the kernels through the Pallas interpreter (multi-device parity
-        # testing on the virtual CPU mesh — dryrun_multichip /
-        # tests/test_pallas_lstm.py), "off" forces the XLA scan, "on"
-        # forces compiled kernels.
-        if pallas_train_mode == "interpret":
-            kw["pallas_train"] = True
-            kw["pallas_train_interpret"] = True
-        elif pallas_train_mode == "off":
-            kw["pallas_train"] = False
-        elif pallas_train_mode == "on":
-            kw["pallas_train"] = True
-        else:
-            kw["pallas_train"] = (
-                getattr(cfg, "lstm_pallas_train", False)
-                and cfg.compute_dtype == "bfloat16"
-                and jax.default_backend() == "tpu"
-                and (per_device_program or jax.device_count() == 1)
-            )
     if cfg.model == "DbofModel":
         # DBoF's flag block (frame_level_models.py:119-124); sampling uses
         # the step-derived rng the towers already receive, so eval (rng
@@ -121,19 +97,6 @@ def _model_apply_kwargs(cfg: TrainConfig, inference: bool = False,
             pooling_method=cfg.dbof_pooling_method,
             add_batch_norm=cfg.dbof_add_batch_norm,
         )
-    if inference:
-        # pallas is opaque to GSPMD, so the jit-with-shardings paths only
-        # use it single-device; the shard_map eval path overrides this
-        # (per-device programs are explicit there).
-        if pallas_override is not None:
-            kw["use_pallas"] = pallas_override
-        else:
-            kw["use_pallas"] = (
-                cfg.use_pallas_inference
-                and cfg.compute_dtype == "bfloat16"
-                and jax.default_backend() == "tpu"
-                and jax.device_count() == 1
-            )
     if cfg.video_level_classifier_model == "MoeModel":
         kw["num_mixtures"] = cfg.moe_num_mixtures
     else:
@@ -147,10 +110,7 @@ def preprocess_batch(
     num_frames: Optional[jax.Array] = None,
 ) -> jax.Array:
     """uint8 [B, T, D] -> l2-normalized f32 (train.py:256 + readers.py
-    Dequantize), fused on device. Measured on v5e: XLA already fuses
-    this chain into one pass (3.5 ms at the flagship batch) and beat a
-    handwritten Pallas version (4.6 ms; removed in r3 — measurements in
-    CLAUDE.md), so the XLA path is the only one.
+    Dequantize), fused on device: XLA fuses the chain into one pass.
 
     Padding frames must end up EXACTLY 0.0 like the reference's
     dequantize-then-zero-pad order (readers.py:170-173) — the loader pads
@@ -171,9 +131,7 @@ def preprocess_batch(
 
 def forward_teacher(cfg: TrainConfig, params, model_input, num_frames, labels=None,
                     inference: bool = False, dropout_keep_prob=1.0, rng=None,
-                    bn_axis_name: Optional[str] = None,
-                    per_device_program: bool = False,
-                    pallas_train_mode: Optional[str] = None):
+                    bn_axis_name: Optional[str] = None):
     model = get_model(cfg.model)
     return model.apply(
         params,
@@ -185,19 +143,14 @@ def forward_teacher(cfg: TrainConfig, params, model_input, num_frames, labels=No
         dropout_keep_prob=dropout_keep_prob,
         rng=rng,
         bn_axis_name=bn_axis_name,
-        **_model_apply_kwargs(cfg, inference=inference,
-                              per_device_program=per_device_program,
-                              pallas_train_mode=pallas_train_mode),
+        **_model_apply_kwargs(cfg, inference=inference),
     )
 
 
 def forward_student(cfg: TrainConfig, params, model_input_student, num_frames_stud,
                     labels=None, inference: bool = False,
                     dropout_keep_prob=1.0, rng=None,
-                    pallas_override: Optional[bool] = None,
-                    bn_axis_name: Optional[str] = None,
-                    per_device_program: bool = False,
-                    pallas_train_mode: Optional[str] = None):
+                    bn_axis_name: Optional[str] = None):
     """`create_model_inference` (frame_level_models.py:269-338): same
     architecture on the subsampled frames with num_inputs_L1 chunks."""
     model = get_model(cfg.model)
@@ -211,10 +164,7 @@ def forward_student(cfg: TrainConfig, params, model_input_student, num_frames_st
         dropout_keep_prob=dropout_keep_prob,
         rng=rng,
         bn_axis_name=bn_axis_name,
-        **_model_apply_kwargs(cfg, inference=inference,
-                              pallas_override=pallas_override,
-                              per_device_program=per_device_program,
-                              pallas_train_mode=pallas_train_mode),
+        **_model_apply_kwargs(cfg, inference=inference),
     )
 
 
@@ -295,7 +245,7 @@ def _merge_updated_stats(new_params, updated):
     (DBoF batch-norm moving averages, models/frame_level.py:_bn_apply)
     back into the optimizer-updated params.
 
-    This is the TPU-native equivalent of the reference's UPDATE_OPS
+    This is the functional equivalent of the reference's UPDATE_OPS
     control dependency around the train op (train.py:312-318): slim's
     batch_norm registers moving-average assign ops there, and
     create_train_op runs them with every step. Here the forward pass
@@ -360,8 +310,7 @@ def _distill_losses(cfg: TrainConfig, out_t, out_s, labels, label_loss_fn):
 
 
 def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer, top_k: int = 20,
-                             axis_name: Optional[str] = None,
-                             pallas_train_mode: Optional[str] = None):
+                             axis_name: Optional[str] = None):
     """Returns step(state, features_u8, labels, num_frames) ->
     (state, metrics). Jit-compatible; sharding is applied by the caller
     (parallel/).
@@ -401,14 +350,10 @@ def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer, top_k: int 
                 nf_student, labels, keep_prob, rng_t, rng_s):
         out_t = forward_teacher(cfg, params_t, model_input, num_frames, labels,
                                 dropout_keep_prob=keep_prob, rng=rng_t,
-                                bn_axis_name=bn_axis,
-                                per_device_program=axis_name is not None,
-                                pallas_train_mode=pallas_train_mode)
+                                bn_axis_name=bn_axis)
         out_s = forward_student(cfg, params_s, model_input_s, nf_student, labels,
                                 dropout_keep_prob=keep_prob, rng=rng_s,
-                                bn_axis_name=bn_axis,
-                                per_device_program=axis_name is not None,
-                                pallas_train_mode=pallas_train_mode)
+                                bn_axis_name=bn_axis)
         ls = _distill_losses(cfg, out_t, out_s, labels, label_loss_fn)
         total = ls["teacher_final_loss"] + ls["total_student_loss"]
         if axis_name is not None:
@@ -476,22 +421,8 @@ def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer, top_k: int 
         )
         # the reference's per-step log covers TEACHER metrics only
         # (train.py:522-526); the student's come from validate.py
-        from efficientvideoclassification_youtube8m_tpu.metrics.eval_util import (
-            perr_precision_on_device,
-            topk_and_perr_on_device,
-        )
-
-        # exact per-video PERR over the FULL teacher score row (the
-        # reference's eval_util.py:34-59 definition) — the top-k form
-        # quietly deviates for >top_k-label videos. On TPU the one-sort
-        # topk+PERR fusion (bit-identical; 1.21x measured,
-        # scripts/probe_fused_eval_sort.py) replaces the two sorts.
-        if jax.default_backend() == "tpu":
-            topk_val_t, topk_idx_t, perr_t = topk_and_perr_on_device(
-                preds_t, labels, top_k)
-        else:
-            topk_val_t, topk_idx_t = jax.lax.top_k(preds_t, top_k)
-            perr_t = perr_precision_on_device(preds_t, labels)
+        topk_val_t, topk_idx_t, perr_t = topk_and_perr_on_device(
+            preds_t, labels, top_k)
         metrics = dict(
             ls,
             learning_rate=lr,
@@ -508,8 +439,7 @@ def build_distill_train_step(cfg: TrainConfig, optimizer: Optimizer, top_k: int 
 def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer, top_k: int = 20,
                         axis_name: Optional[str] = None,
                         host_subsampled: bool = False,
-                        aggregated: bool = False,
-                        pallas_train_mode: Optional[str] = None):
+                        aggregated: bool = False):
     """Student-only training: CE + reg (train_finetune.py:263-331).
 
     With `axis_name`, a per-device shard_map program: both loss terms are
@@ -545,8 +475,6 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer, top_k: int = 20,
                 cfg, params_s, model_input_s, nf_student, labels,
                 dropout_keep_prob=keep_prob, rng=rng,
                 bn_axis_name=axis_name if cfg.sync_batch_norm else None,
-                per_device_program=axis_name is not None,
-                pallas_train_mode=pallas_train_mode,
             )
             label_loss = out_s.get("loss")
             if label_loss is None:
@@ -597,20 +525,8 @@ def build_finetune_step(cfg: TrainConfig, optimizer: Optimizer, top_k: int = 20,
             opt_student=new_os,
             global_step=state.global_step + 1,
         )
-        # exact full-row PERR like the distill step (the top-k
-        # approximation deviates for >top_k-label videos); on TPU the
-        # one-sort fusion computes both
-        from efficientvideoclassification_youtube8m_tpu.metrics.eval_util import (
-            perr_precision_on_device,
-            topk_and_perr_on_device,
-        )
-
-        if jax.default_backend() == "tpu":
-            topk_val, topk_idx, perr = topk_and_perr_on_device(
-                preds, labels, top_k)
-        else:
-            topk_val, topk_idx = jax.lax.top_k(preds, top_k)
-            perr = perr_precision_on_device(preds, labels)
+        topk_val, topk_idx, perr = topk_and_perr_on_device(
+            preds, labels, top_k)
         metrics = {
             "student_label_loss": label_loss,
             "student_reg_loss": reg,
@@ -715,22 +631,13 @@ def _eval_outputs(predictions, labels, top_k: int) -> Dict[str, Any]:
         + (1 - fl) * jnp.log(1 - predictions + eps),
         axis=1,
     )
-    from efficientvideoclassification_youtube8m_tpu.metrics.eval_util import (
-        perr_precision_on_device,
-        topk_and_perr_on_device,
-    )
-
-    # one-sort topk+PERR fusion: bit-identical to the separate ops
-    # (test_metrics_fast pins it) and 1.21x on the chip (3.69 vs 4.45 ms
-    # at b=1024, scripts/probe_fused_eval_sort.py) — lax.top_k does NOT
-    # lower to a cheaper partial sort there. CPU keeps the separate form
-    # (the fusion's full key-val sort measured slower host-side).
-    if jax.default_backend() == "tpu":
-        topk_val, topk_idx, perr = topk_and_perr_on_device(
-            predictions, labels, top_k)
-    else:
-        topk_val, topk_idx = jax.lax.top_k(predictions, top_k)
-        perr = perr_precision_on_device(predictions, labels)
+    # device top-k + the exact full-row PERR (the reference's
+    # eval_util.py:34-59 definition) from ONE sort: bit-identical to
+    # lax.top_k + perr_precision_on_device (tests/test_metrics_fast.py)
+    # and faster on the GPU (0.97 vs 1.29 ms at 1024x4716 on one NVIDIA
+    # H100 80GB HBM3 at 700 W)
+    topk_val, topk_idx, perr = topk_and_perr_on_device(
+        predictions, labels, top_k)
     return {
         "predictions": predictions,
         "per_example_loss": per_example_loss,
@@ -744,7 +651,6 @@ def _eval_outputs(predictions, labels, top_k: int) -> Dict[str, Any]:
 
 
 def build_eval_step(cfg: TrainConfig, top_k: int = 20,
-                    pallas_override: Optional[bool] = None,
                     host_subsampled: bool = False,
                     aggregated: bool = False):
     """Student-only eval (eval_finetune.py:108-176).
@@ -773,7 +679,7 @@ def build_eval_step(cfg: TrainConfig, top_k: int = 20,
             _, rng_s = _faithful_eval_rngs(cfg, num_frames)
             out_s = forward_student(cfg, params_student, model_input_s,
                                     nf_student, labels, inference=True,
-                                    rng=rng_s, pallas_override=pallas_override)
+                                    rng=rng_s)
         return _eval_outputs(out_s["predictions"], labels, top_k)
 
     return step
@@ -796,14 +702,6 @@ def build_quantized_eval_step(cfg: TrainConfig, top_k: int = 20,
             "+ MoeModel configuration"
         )
 
-    # fused int8 Pallas recurrence on single-chip TPU (opaque to GSPMD,
-    # same eligibility rule as the bf16 inference path)
-    use_pallas = (
-        cfg.use_pallas_inference
-        and jax.default_backend() == "tpu"
-        and jax.device_count() == 1
-    )
-
     def step(qparams, features_u8, labels, num_frames):
         nf_student = student_num_frames(num_frames, cfg.every_n,
                                         cfg.max_num_frames)
@@ -813,7 +711,7 @@ def build_quantized_eval_step(cfg: TrainConfig, top_k: int = 20,
         predictions = quantized_hierarchical_forward(
             qparams, model_input_s, nf_student, cfg.num_inputs_L1,
             cfg.num_classes, cfg.moe_num_mixtures,
-            scan_unroll=cfg.scan_unroll, use_pallas=use_pallas,
+            scan_unroll=cfg.scan_unroll,
         )
         return _eval_outputs(predictions, labels, top_k)
 

@@ -6,7 +6,7 @@ directly — `tf.train.Saver` restore maps by the exact variable names the
 reference graphs create (`validate.py:350-381`,
 `train_convert_model.py:501-513`), and `inspect_checkpoint_myfile.py`
 lists the same tensors. The MoE weights are permuted back from the
-TPU-friendly `[D, K, V]` storage to the reference's class-interleaved
+`[D, K, V]` storage to the reference's class-interleaved
 `[D, V*K]` columns (`moe_weights_to_tf`), and the Adam moments export as
 `<var>/Adam` / `<var>/Adam_1` with `beta{1,2}_power` recovered from the
 optimizer step count (= b^t) so reference training can RESUME from an

@@ -5,7 +5,7 @@ be served, evaluated, or finetuned here: this module maps the
 reference's variable names (the hardcoded Saver maps,
 `validate.py:350-381`) onto the rebuild's state pytrees, permuting the
 MoE weight layout from the reference's class-interleaved columns to the
-TPU-friendly `[D, K, V]` storage (`models/video_level.py:43-49`).
+`[D, K, V]` storage (`models/video_level.py:43-49`).
 
 Name map (teacher scope "model", student scope "model_student"):
 

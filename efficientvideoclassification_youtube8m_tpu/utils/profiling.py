@@ -2,8 +2,8 @@
 
 The reference's only observability is wall-clock deltas -> examples/sec
 summaries (`train.py:513-521,542-544`) plus `log_device_placement`.
-The rebuild keeps those (cli/ emits the same summary tags) and adds the
-TPU-native equivalents:
+The rebuild keeps those (cli/ emits the same summary tags) and adds
+JAX-native equivalents:
 
   * `trace(logdir)` — `jax.profiler` trace context producing TensorBoard
     profile dumps (device timelines, XLA op breakdown);

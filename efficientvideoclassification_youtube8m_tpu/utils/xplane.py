@@ -1,9 +1,9 @@
 """XPlane (jax.profiler trace) parser + op-time summarizer.
 
-`jax.profiler.start_trace` writes `*.xplane.pb` files; the usual analysis
-path (tensorboard_plugin_profile) is version-broken against this image's
-TF, so this parses the XSpace proto directly with the framework's own
-wire codec (data/proto.py) and aggregates device op durations.
+`jax.profiler.start_trace` writes `*.xplane.pb` files; this parses the
+XSpace proto directly with the framework's own wire codec
+(data/proto.py) — no TensorFlow or profiler plugin — and aggregates
+device kernel durations.
 
 XSpace wire layout (tensorflow/core/profiler/protobuf/xplane.proto):
   XSpace  { repeated XPlane planes = 1; }
@@ -74,12 +74,18 @@ def parse_xplane(path: str) -> Dict[str, Dict[str, int]]:
 
 def summarize_trace(
     trace_dir: str,
-    plane: str = "/device:TPU:0",
-    line: str = "XLA Ops",
+    plane: str = "/device:GPU:0",
+    line: str = "Stream #",
     top: int = 25,
     steps: int = 1,
 ) -> List[Tuple[float, str]]:
-    """Top ops by total duration (ms per step) on a device plane."""
+    """Top kernels by total duration (ms per step) on a device plane.
+
+    A GPU trace from `jax.profiler` holds one plane per card
+    ("/device:GPU:0", ...) whose lines are CUDA streams
+    ("Stream #13(Compute,Memset)"); each event is one kernel, named after
+    its XLA fusion or its library kernel (cuBLAS GEMMs). `plane` and
+    `line` are substrings of those names."""
     files = sorted(globlib.glob(f"{trace_dir}/**/*.xplane.pb", recursive=True))
     if not files:
         raise IOError(f"no xplane.pb under {trace_dir}")
@@ -103,8 +109,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser("Summarize a jax.profiler trace")
     ap.add_argument("trace_dir")
-    ap.add_argument("--plane", default="/device:TPU:0")
-    ap.add_argument("--line", default="XLA Ops")
+    ap.add_argument("--plane", default="/device:GPU:0")
+    ap.add_argument("--line", default="Stream #")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--steps", type=int, default=1)
     args = ap.parse_args(argv)

@@ -1,36 +1,35 @@
 #!/usr/bin/env python
-"""Acceptance harness — replays the recorded flagship convergence run
-and ASSERTS its bands (the durable form of the r1/r2 acceptance records
-in CLAUDE.md).
+"""Acceptance harness — the flagship convergence run, with its bands
+ASSERTED.
 
-Recipe (r2 record): learnable synthetic data (label->byte-pattern
-mapping, data/yt8m.write_learnable_frame_shard) with vocab 256, 2048
-train / 512 held-out videos, flagship dims (HierarchicalLstm 2x1024,
-300 frames, 20 chunks, every_n 10), bf16, 20 epochs at batch 128
-(16 batches/epoch; 30 epochs -> 960 faithful global steps) through the
-REAL cli.train, then held-out STUDENT validation through cli.validate.
-
-r3 TPU run of this exact script: train GAP 1.00 first at step 272;
-held-out Hit@1 0.975 / PERR 0.854 / GAP 0.809 / mAP 0.838 — at or above
-every recorded r2 number.
-
-Recorded results: teacher hits train GAP 1.00 by ~step 590; held-out
-student Hit@1 0.963 / PERR 0.823 / mAP 0.783 / GAP 0.759.
+Recipe: learnable synthetic data (label->byte-pattern mapping,
+data/yt8m.write_learnable_frame_shard) with vocab 256, 2048 train / 512
+held-out videos, flagship dims (HierarchicalLstm 2x1024, 300 frames, 20
+chunks, every_n 10), bf16, 30 epochs at batch 128 (16 batches/epoch ->
+960 faithful global steps) through the REAL cli.train, then held-out
+STUDENT validation through cli.validate.
 
 Asserted bands (fail -> exit 1):
   * train GAP >= 0.995 by step <= 700
   * held-out student Hit@1 >= 0.95 and GAP >= 0.74
 
-Intended for TPU (~10 min incl. compile). On CPU pass --scan_unroll 1
-and expect a multi-hour run (one host core).
+Intended for the GPU. On CPU pass --scan_unroll 1 and expect a
+multi-hour run. With --deterministic_input true (the default) the batch
+stream replays exactly (round-robin file dispatch + in-order drain; rngs
+derive from the global step); the per-step loss trajectory digest is
+printed so two runs can be compared. No digest is pinned: GPU reductions
+need not be bit-reproducible across machines or autotuning choices.
+
+Recorded on one NVIDIA H100 80GB HBM3, 700.00 W (defaults, two runs in
+one machine, identical digests b1e91560e8f62913f461a08905ce6fa811a7db53):
+train GAP 0.995 first at step 388; held-out Hit@1 0.971 / PERR 0.834 /
+GAP 0.793 / mAP 0.851.
 
 CONVERGENCE GATE — read before flipping any train-math default:
 any flag that changes the training-step math (precision of residual /
 cotangent streams, kernel fusion, optimizer math, loss terms) MUST pass
-these bands on the real chip with the flag enabled BEFORE its default
-changes. The r3 bf16-residual Pallas episode is why: it measured +38%
-throughput but stalled at train GAP 0.06 by step 534 (float converges
-by 272) — throughput wins that lose convergence are not wins.
+these bands on the card with the flag enabled BEFORE its default
+changes: a throughput win that loses convergence is not a win.
 
 Usage: python scripts/acceptance_run.py [--workdir DIR] [--scan_unroll N]
 """
@@ -59,26 +58,6 @@ _LOSS_RE = re.compile(
 VOCAB = 256
 TRAIN_VIDEOS = 2048
 HELDOUT_VIDEOS = 512
-
-# The REPLAYABLE record (VERDICT r4 #5): measured on the real chip with
-# the default stack (--deterministic_input true, --lstm_pallas_train
-# true, 30 epochs at batch 128, seed-fixed shards) — the run is
-# bit-reproducible (round-robin file dispatch + in-order drain replays
-# the batch stream exactly; rngs derive from the global step), so the
-# plateau-escape step and the whole loss trajectory are EXACT numbers,
-# not luck bands. Two back-to-back hardware runs produced identical
-# digests. Asserted only in the default configuration.
-# r5 hardware record (v5e, two back-to-back runs, identical to the
-# digest): train GAP 1.00 first at EXACTLY step 338; 480 logged steps;
-# held-out Hit@1 0.969 / PERR 0.852 / GAP 0.781 / mAP 0.826.
-DETERMINISTIC_CONVERGED_STEP = 338
-DETERMINISTIC_TRAJECTORY_SHA1 = "e3c3f539ec680c22d599139d2afde58afb91468f"
-# Secondary record, --lstm_pallas_train false (the XLA-scan path), same
-# data/seed: converged at step 352 (the fused kernels converge slightly
-# FASTER), sha1 420c77619578922666db575fe237e5a1cb1eeaa6, held-out
-# Hit@1 0.965 / PERR 0.841 / GAP 0.778 / mAP 0.820. Not asserted (the
-# exact checks guard the default config only) — recorded for bisecting.
-
 
 class _GapCapture(logging.Handler):
     def __init__(self):
@@ -109,20 +88,13 @@ class _GapCapture(logging.Handler):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--workdir", default=None)
-    ap.add_argument("--scan_unroll", type=int, default=15)
+    ap.add_argument("--scan_unroll", type=int, default=None,
+                    help="default: the CLI's own default")
     ap.add_argument("--num_epochs", type=int, default=30)
-    ap.add_argument("--lstm_pallas_train", default="true",
-                    help="forwarded to cli.train (fused train kernels — "
-                    "the production default; pass false to gate-check "
-                    "the XLA-scan path)")
     ap.add_argument("--deterministic_input", default="true",
                     help="forwarded to cli.train/validate: replayable "
                     "batch order (round-robin file dispatch + in-order "
-                    "drain). DEFAULT ON since r5 — the gate asserts an "
-                    "exact, replayable trajectory instead of the old "
-                    "luck band (plateau escape varied ~step 80-350+ "
-                    "under work-stealing readers). Pass false to "
-                    "reproduce the nondeterministic r1-r4 records")
+                    "drain). Pass false for work-stealing readers")
     args = ap.parse_args()
     workdir = args.workdir or tempfile.mkdtemp(prefix="yt8m_acceptance_")
     data_dir = os.path.join(workdir, "yt8m")
@@ -163,9 +135,10 @@ def main():
         "--num_readers", "4",
         "--deterministic_input", args.deterministic_input,
         "--compute_dtype", "bfloat16",
-        "--scan_unroll", str(args.scan_unroll),
         "--save_model_secs", "100000",  # one final checkpoint
     ]
+    if args.scan_unroll is not None:
+        flags += ["--scan_unroll", str(args.scan_unroll)]
 
     from efficientvideoclassification_youtube8m_tpu.cli import (
         train as train_cli,
@@ -181,7 +154,6 @@ def main():
         "--train_data_pattern", os.path.join(data_dir, "train-*.tfrecord"),
         "--num_epochs", str(args.num_epochs),
         "--start_new_model", "true",
-        "--lstm_pallas_train", args.lstm_pallas_train,
     ])
     logging.getLogger("train").removeHandler(capture)
 
@@ -214,14 +186,12 @@ def main():
     if not epoch:
         print("  validation produced NO epoch data (empty eval stream?)")
     print(f"  train GAP >= 0.995 first at step: {capture.first_converged_step}"
-          f" (recorded ~590); last logged: {capture.last}")
+          f"; last logged: {capture.last}")
     digest = capture.trajectory_sha1()
     print(f"  per-step loss trajectory sha1: {digest} "
           f"({len(capture.loss_lines)} steps)")
-    print(f"  held-out Hit@1 {hit:.3f} (recorded 0.963)"
-          f" | PERR {perr:.3f} (0.823)"
-          f" | GAP {gap:.3f} (0.759)"
-          f" | mAP {mean_ap:.3f} (0.783)")
+    print(f"  held-out Hit@1 {hit:.3f} | PERR {perr:.3f} | GAP {gap:.3f}"
+          f" | mAP {mean_ap:.3f}")
 
     ok = True
 
@@ -233,18 +203,6 @@ def main():
     expect(capture.first_converged_step is not None
            and capture.first_converged_step <= 700,
            "train GAP reaches 0.995 by step 700")
-    default_config = (args.deterministic_input == "true"
-                      and args.lstm_pallas_train == "true"
-                      and args.num_epochs == 30)
-    if default_config and DETERMINISTIC_CONVERGED_STEP is not None:
-        expect(capture.first_converged_step == DETERMINISTIC_CONVERGED_STEP,
-               f"deterministic replay: convergence at EXACTLY step "
-               f"{DETERMINISTIC_CONVERGED_STEP} "
-               f"(got {capture.first_converged_step})")
-    if default_config and DETERMINISTIC_TRAJECTORY_SHA1 is not None:
-        expect(digest == DETERMINISTIC_TRAJECTORY_SHA1,
-               "deterministic replay: per-step loss trajectory matches "
-               "the recorded digest exactly")
     expect(epoch.get("avg_hit_at_one", 0.0) >= 0.95,
            "held-out student Hit@1 >= 0.95")
     expect(epoch.get("gap", 0.0) >= 0.74, "held-out student GAP >= 0.74")

@@ -1,7 +1,6 @@
 """Microbenchmark: host-side epoch metric accumulation, r2 vs r3.
 
-The device eval step emits ~44k videos/s on one v5e chip; r2's host-side
-aggregation (Python B*k scatter + per-entry heap pushes,
+r2's host-side aggregation (Python B*k scatter + per-entry heap pushes,
 metrics/eval_util.py r2) was the CLI epoch bottleneck. r3 vectorizes the
 per-batch work and defers heap pushes to one epoch-wide bulk flush
 through the C kernel (data/native/heap.cc).

@@ -1,5 +1,5 @@
 #!/bin/bash
-# Training of Dynamic Teacher and Student on Train Data (TPU).
+# Training of Dynamic Teacher and Student on Train Data.
 # Mirror of the reference's run_train.sh canonical flags
 # (/root/reference/run_train.sh), per-epoch backup protocol included.
 set -e

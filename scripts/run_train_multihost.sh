@@ -15,11 +15,20 @@
 #     1/NUM_HOSTS slice from its own disjoint set of input shards
 #     (there must be >= NUM_HOSTS input files);
 #   * the global batch is assembled with
-#     jax.make_array_from_process_local_data; gradients reduce over ICI;
+#     jax.make_array_from_process_local_data; gradients all-reduce
+#     across hosts (NCCL);
 #   * host 0 (the "master" job) owns summaries and checkpoints; with
-#     --checkpoint_format orbax every host writes its own shards;
+#     CHECKPOINT_FORMAT=orbax every host writes its own shards;
 #   * TRAIN_DIR must be shared storage (NFS/GCS-fuse) so eval jobs and
-#     resume see one checkpoint stream.
+#     resume see one checkpoint stream;
+#   * one process per host, driving all of that host's cards. A JAX
+#     process reserves most of a card's memory when it starts, so two
+#     processes on one machine must each get their own cards: give each
+#     its own CUDA_VISIBLE_DEVICES (or jax.distributed.initialize's
+#     local_device_ids).
+#   * checkpoints default to msgpack (replicated data-parallel state,
+#     written by host 0); CHECKPOINT_FORMAT=orbax writes per-host shards
+#     and needs the orbax-checkpoint package.
 set -e
 NUM_HOSTS=${NUM_HOSTS:-2}
 HOST_INDEX=${HOST_INDEX:-0}
@@ -52,4 +61,4 @@ time python -u -m efficientvideoclassification_youtube8m_tpu.cli.train \
   --num_inputs_to_lstm 20 --lstm_layers 2 \
   --start_new_model ${START_NEW_MODEL:-False} --num_epochs ${EPOCH:-1} \
   --every_n 10 --base_learning_rate 0.001 \
-  --checkpoint_format ${CHECKPOINT_FORMAT:-orbax}
+  --checkpoint_format ${CHECKPOINT_FORMAT:-msgpack}

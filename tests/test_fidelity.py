@@ -129,24 +129,17 @@ def test_init_teacher_loss_matches_golden_log():
 
 
 def test_trajectory_harness_bands():
-    """scripts/fidelity_check.py pins the few-step loss trajectory
-    against the reference golden log (README.md:116-122). The capture
-    regex parses the trainer's log-line format, and the band checks
-    accept a golden-shaped trajectory while rejecting non-decreasing /
-    diverging ones (VERDICT r1 missing #4)."""
-    import importlib.util
+    """utils/fidelity.py (used by scripts/fidelity_check.py and
+    chip_smoke.py) pins the few-step loss trajectory against the
+    reference golden log (README.md:116-122). The capture regex parses
+    the trainer's log-line format, and the band checks accept a
+    golden-shaped trajectory while rejecting non-decreasing / diverging
+    ones."""
     import logging
-    import os
 
-    spec = importlib.util.spec_from_file_location(
-        "fidelity_check",
-        os.path.join(os.path.dirname(__file__), "..", "scripts",
-                     "fidelity_check.py"),
-    )
-    fc = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fc)
+    from efficientvideoclassification_youtube8m_tpu.utils import fidelity as fc
 
-    cap = fc._StepCapture()
+    cap = fc.StepCapture()
     fmt = ("training step %d| Hit@1: %.2f| PERR: %.2f| GAP: %.2f| "
            "Teacher_Loss: %s| L_REP: %s| L_PRED: %s| L_CE: %s")
     for step, t, r, p, c in [(2, 1914.13, 1.16, 0.01, 1914.1),

@@ -142,3 +142,45 @@ def test_outputs_zeroed_past_seq_len():
     assert np.all(outs[0, 2:] == 0.0)
     assert np.all(outs[0, :2] != 0.0)
     assert np.all(outs[1] != 0.0)
+
+
+# The flagship's four recurrences (HierarchicalLstmModel, 2 layers x 1024
+# cells): (time steps, input width) of the teacher's 15-frame L1 chunks
+# and 20-chunk L2, and the student's 6-frame L1 chunks (30 frames / 5)
+# and 5-chunk L2.
+FLAGSHIP_SCANS = {
+    "teacher_l1": (15, 1152),
+    "student_l1": (6, 1152),
+    "teacher_l2": (20, 4096),
+    "student_l2": (5, 4096),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLAGSHIP_SCANS))
+def test_bf16_scan_at_flagship_widths_tracks_float64_oracle(name):
+    """The production bf16 scan at the real widths against the float64
+    per-timestep oracle. Tolerance: bf16 keeps 8 mantissa bits (~4e-3
+    relative rounding of each step's matmul operands); measured on CPU
+    the state's max error is 0.3-0.4% of its largest entry at every
+    shape, so 1.5% leaves a 4x margin while a semantic error (a wrong
+    gate, mask or layout) moves the state by far more."""
+    T, D = FLAGSHIP_SCANS[name]
+    H, B = 1024, 4
+    rng = np.random.default_rng(7)
+    params = init_multi_lstm(jax.random.PRNGKey(8), D, H, 2)
+    # L1 inputs are l2-normalized frames; L2 inputs are O(1) [c, h] states
+    scale = 1.0 / np.sqrt(D) if D == 1152 else 0.5
+    xs = (rng.normal(size=(B, T, D)) * scale).astype(np.float32)
+    seq_len = np.array([0, 1, T // 2, T], dtype=np.int32)
+    got = np.asarray(multi_lstm_scan(
+        params, jnp.asarray(xs), jnp.asarray(seq_len),
+        compute_dtype=jnp.bfloat16), np.float64)
+    want = ref_multi_dynamic_rnn(
+        [{k: np.asarray(v, np.float64) for k, v in p.items()} for p in params],
+        xs.astype(np.float64), seq_len)
+    assert got.shape == (B, 4 * H)
+    np.testing.assert_array_equal(got[0], 0.0)  # zero-length: zero state
+    err = np.max(np.abs(got - want))
+    assert err <= 1.5e-2 * np.max(np.abs(want)), (err, np.max(np.abs(want)))
+    # and the error is bf16-sized: the scan really computed in bf16
+    assert err > 1e-7 * np.max(np.abs(want))

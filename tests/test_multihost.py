@@ -1,4 +1,4 @@
-"""Multi-host execution (VERDICT r1 #1).
+"""Multi-host execution.
 
 Two layers:
 
@@ -138,7 +138,6 @@ def test_two_process_distributed_run(tmp_path):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-    env["JAX_COMPILATION_CACHE_DIR"] = "/tmp/jax_test_cache"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["MULTIHOST_CKPT_DIR"] = str(tmp_path / "ckpt")
 

@@ -153,8 +153,7 @@ def test_02b_validate_steps_per_dispatch_identical(pipeline_dirs):
     # avg_loss to f32-ulp tolerance: on CPU, XLA may vectorize the CE
     # reduction differently inside the scan body than in the standalone
     # step, so per-example losses can differ by an ulp for SOME weights
-    # (rank metrics stay exact; on the TPU the packs measured
-    # bit-identical)
+    # (rank metrics stay exact)
     np.testing.assert_allclose(base["avg_loss"], stacked["avg_loss"],
                                rtol=1e-6)
     np.testing.assert_array_equal(base["aps"], stacked["aps"])
@@ -261,8 +260,7 @@ def test_05d_eval_quantized_stacked_identical(pipeline_dirs):
     # avg_loss to f32-ulp tolerance: on CPU, XLA may vectorize the CE
     # reduction differently inside the scan body than in the standalone
     # step, so per-example losses can differ by an ulp for SOME weights
-    # (rank metrics stay exact; on the TPU the packs measured
-    # bit-identical)
+    # (rank metrics stay exact)
     np.testing.assert_allclose(base["avg_loss"], stacked["avg_loss"],
                                rtol=1e-6)
     np.testing.assert_array_equal(base["aps"], stacked["aps"])
@@ -301,8 +299,7 @@ def test_05c_eval_steps_per_dispatch_identical(pipeline_dirs):
     # avg_loss to f32-ulp tolerance: on CPU, XLA may vectorize the CE
     # reduction differently inside the scan body than in the standalone
     # step, so per-example losses can differ by an ulp for SOME weights
-    # (rank metrics stay exact; on the TPU the packs measured
-    # bit-identical)
+    # (rank metrics stay exact)
     np.testing.assert_allclose(base["avg_loss"], stacked["avg_loss"],
                                rtol=1e-6)
     np.testing.assert_array_equal(base["aps"], stacked["aps"])

@@ -1,7 +1,7 @@
 """int8 quantized serving path (ops/quantize.py + Predictor(quantize=)).
 
 Covers: per-channel weight quantization round-trip, the quantized
-hierarchical forward tracking the f32 forward closely, and the VERDICT
+hierarchical forward tracking the f32 forward closely, and the
 acceptance bar — epoch Hit@1/GAP within +/-2e-3 of the float path on a
 learnable synthetic eval with a genuinely trained student.
 """
@@ -131,7 +131,7 @@ def _train_tiny_student(cfg, steps=220, lr=0.02, seed=0):
 
 
 def test_int8_epoch_metrics_within_2e3_of_float():
-    """The VERDICT acceptance bar: Hit@1 and GAP of the int8 Predictor
+    """The acceptance bar: Hit@1 and GAP of the int8 Predictor
     within +/-0.002 of the float path on a held-out synthetic eval."""
     cfg = TINY.replace(batch_size=32)
     params, batch = _train_tiny_student(cfg)

@@ -119,7 +119,7 @@ def test_topk(dirs):
 
 
 def test_sequence_parallel_predict_parity(dirs):
-    """VERDICT r1 #8: the Predictor's sequence-parallel path (chunk axis
+    """The Predictor's sequence-parallel path (chunk axis
     sharded over the mesh, parallel/sequence_parallel.py) returns the
     same predictions as the single-device forward."""
     from efficientvideoclassification_youtube8m_tpu.parallel import create_mesh

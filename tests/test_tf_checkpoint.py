@@ -1,4 +1,4 @@
-"""TF Saver-V2 checkpoint import (VERDICT r1 #2).
+"""TF Saver-V2 checkpoint import.
 
 Fixtures are written by REAL TensorFlow (tf.compat.v1.train.Saver, the
 same writer the reference uses); the reader/importer under test is the
@@ -410,7 +410,7 @@ def test_serving_predictor_from_tf_checkpoint_dir(tmp_path):
 
 def test_validate_cli_over_tf_checkpoint_dir(tmp_path):
     """cli.validate pointed at a reference TF train_dir evaluates it
-    directly (pointer file + importer, VERDICT r1 missing #2)."""
+    directly (pointer file + importer)."""
     from efficientvideoclassification_youtube8m_tpu.cli import validate
     from efficientvideoclassification_youtube8m_tpu.data.yt8m import (
         write_synthetic_frame_shard,
@@ -445,7 +445,7 @@ def test_validate_cli_over_tf_checkpoint_dir(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# TF-V2 EXPORT (VERDICT r4 #8): the inverse direction — checkpoints this
+# TF-V2 EXPORT: the inverse direction — checkpoints this
 # framework WRITES must be consumable by the reference's TF tooling.
 # ---------------------------------------------------------------------------
 

@@ -370,11 +370,10 @@ def test_async_saver_matches_sync_and_survives_donation(tmp_path):
 
 
 def test_async_saver_snapshot_mode_fallback(tmp_path):
-    """The snapshot prefers pinned_host memory (flat HBM high-water; the
-    in-HBM duplicate of the 3.4GB flagship state OOM'd the 16GB v5e —
-    probe_async_checkpoint.py r4). XLA:CPU lists pinned_host but cannot
-    execute the placement, so the saver must settle on the in-HBM copy
-    and still produce a byte-identical checkpoint."""
+    """The snapshot prefers pinned_host memory (flat device-memory
+    high-water). XLA:CPU lists pinned_host but cannot execute the
+    placement, so the saver must settle on the in-device copy and still
+    produce a byte-identical checkpoint."""
     from efficientvideoclassification_youtube8m_tpu.train import (
         AsyncCheckpointSaver,
     )
@@ -765,7 +764,7 @@ def test_dbof_faithful_eval_sampling_flag():
     """Reference DBoF samples frames RANDOMLY at eval too
     (model_utils.py:39-58 via frame_level_models.py:126-131). Faithful
     mode reproduces that; the corrected default (faithful_quirks=False)
-    evaluates on deterministic even samples (VERDICT r1 missing #5)."""
+    evaluates on deterministic even samples."""
     import dataclasses
 
     base = dataclasses.replace(
